@@ -1,7 +1,7 @@
-"""Round-5 surface tour: in-kernel views, fused matmul epilogues, axis
-reductions, and the int8 MXU path.
+"""Surface tour: views as operands, fused matmul epilogues, axis
+reductions, and the int8 path.
 
-Run: python examples/quantized_views.py   (any backend; TPU for real kernels)
+Run: python examples/quantized_views.py   (any backend)
 """
 
 import numpy as np
@@ -10,9 +10,8 @@ import simplemath_tpu as sm
 
 rng = np.random.default_rng(0)
 
-# --- views are read INSIDE kernels -----------------------------------------
-# The transpose below never materializes: the kernel streams the base
-# buffer through a permuted BlockSpec index map and relayouts tiles in VMEM.
+# --- views as operands -----------------------------------------------------
+# The transpose below joins the deferred chain; XLA fuses it into the add.
 A = sm.array(rng.standard_normal((1024, 512)).astype(np.float32))
 B = sm.array(rng.standard_normal((512, 1024)).astype(np.float32))
 C = sm.add(A.T, B)
@@ -23,11 +22,11 @@ print("view add:", C.shape)
 P = A.T @ sm.array(rng.standard_normal((1024, 256)).astype(np.float32))
 print("transposed matmul:", P.shape)
 
-# --- axis reductions (kernel-routed, fusable) ------------------------------
+# --- axis reductions (fusable) ----------------------------------------------
 row_norms = sm.fuse(lambda x: sm.sum(sm.square(x), axis=1))
 print("row norms:", np.asarray(row_norms(A)).shape)
 
-# --- fused matmul epilogue: relu(x @ W + b) is ONE MXU launch --------------
+# --- fused matmul epilogue: relu(x @ W + b) is one program ------------------
 X = rng.standard_normal((512, 384)).astype(np.float32)
 W = rng.standard_normal((384, 640)).astype(np.float32)
 b = rng.standard_normal((1, 640)).astype(np.float32)
@@ -35,11 +34,10 @@ layer = sm.fuse(lambda x, w, bias: sm.maximum(x @ w + bias, 0.0))
 Y = layer(X, W, b)
 print("fused layer:", Y.shape)
 
-# --- quantized inference on the MXU int8 path ------------------------------
+# --- quantized inference on the int8 path ----------------------------------
 qx, sx = sm.quantize(X)
 qw, sw = sm.quantize(W)
-# scale= fuses dequantization into the kernel epilogue: i32 accumulator
-# scaled to f32 in VMEM, one launch.
+# scale= dequantizes the i32 product to f32 in the same program.
 Yq = sm.int8_matmul(qx, qw, scale=float(np.asarray(sx) * np.asarray(sw)))
 ref = X @ W
 rel = np.abs(np.asarray(Yq) - ref).max() / np.abs(ref).max()

@@ -1,16 +1,17 @@
-"""simplemath_tpu — a TPU-native array + batched trajectory-optimization
-framework with the capability surface of alielmorsy/simpleMath.
+"""simplemath_tpu — an accelerator array + batched trajectory-optimization
+framework in JAX with the capability surface of alielmorsy/simpleMath.
 
-The reference (``/root/reference``) is a header-only C++20 SIMD ndarray
-library (``sm::SMArray<T>``); this package re-creates that capability set
-TPU-first:
+The reference is a header-only C++20 SIMD ndarray library
+(``sm::SMArray<T>``); this package re-creates that capability set on an
+accelerator (an NVIDIA H100; every op also runs on the CPU):
 
 * ``sm.Array`` — N-D arrays with NumPy broadcasting, aliasing views,
   slicing/transpose/repeat, operators (reference include/SMArray.h);
-* ``sm.ops`` — op registry + Pallas VMEM-tiled elementwise/broadcast
-  kernels + correct-range-reduction exp/log/pow (reference include/math/);
+* ``sm.ops`` — op registry, deferred-eager fusion, correct-range-reduction
+  exp/log/pow, and a Triton kernel for iterated fusion (reference
+  include/math/);
 * ``sm.parallel`` — mesh construction and shard_map collectives (the
-  reference's intra-op OpenMP parallelism, scaled to ICI/DCN);
+  reference's intra-op OpenMP parallelism, scaled across devices);
 * ``sm.models`` — batched iLQR/DDP and SQP-MPC solvers built on the array
   core (the BASELINE.json north star).
 
@@ -19,7 +20,7 @@ Typical use::
     import simplemath_tpu as sm
     a = sm.Array([[1., 2.], [3., 4.]])
     b = sm.ones(2, 2)
-    c = a + b                 # broadcast + Pallas/XLA elementwise kernel
+    c = a + b                 # broadcast + deferred elementwise op
     d = sm.pow(a, 3)          # correct float/integer pow
     v = a[0, :]               # aliasing view; v[0] = 9 writes through
 """

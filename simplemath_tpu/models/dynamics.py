@@ -10,7 +10,7 @@ over jnp-compatible operands — they trace identically whether called with
 ``jax.Array`` or ``simplemath_tpu.Array`` (the SMArray-API expressibility the
 north star asks for; see tests/test_models.py::test_dynamics_via_sm_api).
 Dynamics are continuous-time ``xdot = f(x, u)`` discretized with RK4, static
-shapes throughout so everything vmaps and compiles onto the MXU/VPU.
+shapes throughout so everything vmaps and compiles to batched vector ops.
 """
 
 from __future__ import annotations
@@ -43,14 +43,13 @@ class System:
     final_cost: Callable  # (x) -> scalar
     # True when the costs are coordinate-separable (diagonal Hessians, no
     # x-u cross terms): iLQR's PSD projection then reduces to exact diagonal
-    # clamping instead of a batched eigh — ~10x faster backward-pass prep on
-    # TPU (ILQRConfig.psd="auto").
+    # clamping instead of a batched eigh (ILQRConfig.psd="auto").
     separable_cost: bool = False
     # True when step/stage_cost/final_cost accept states with arbitrary
     # TRAILING batch axes — x of shape (nx, *batch), u of (nu, *batch),
     # costs returning (*batch).  Lets the batched solvers run rollouts and
     # line searches in batch-minor SoA layout (ops/soa.py) where the
-    # scenario batch fills the TPU's 128-lane axis, instead of vmapping
+    # scenario batch is the minor (contiguous) axis, instead of vmapping
     # with the tiny state dim minor.  Leading-axis indexing (``x[0]``) plus
     # ``jnp.stack`` along axis 0 gives this for free; constants must
     # broadcast from the left (see _left_bcast).

@@ -1,6 +1,6 @@
 """Batched iLQR/DDP trajectory optimizer — the BASELINE.json north star.
 
-Built TPU-first on the array core:
+Built on the array core:
 
 * rollouts and linearization are ``lax.scan``/``vmap`` over static shapes;
 * the Riccati backward pass comes in two interchangeable forms:
@@ -13,7 +13,7 @@ Built TPU-first on the array core:
 * the forward line search evaluates ALL step sizes in parallel with ``vmap``
   and picks the best improvement — batched work instead of host control
   flow;
-* thousands of scenarios run per chip via an outer ``vmap``; the scenario
+* thousands of scenarios run per device via an outer ``vmap``; the scenario
   axis shards over the device mesh in simplemath_tpu.parallel.
 
 Everything is jittable with zero data-dependent python control flow; the
@@ -48,8 +48,8 @@ class ILQRConfig:
     # indefinite, which NaNs the Riccati Cholesky):
     #   "auto"       — "clamp_diag" for separable-cost systems, else "eigh";
     #   "clamp_diag" — clamp diagonal entries at eps (EXACT projection when
-    #                  Hessians are diagonal, i.e. separable costs; ~10x
-    #                  faster than eigh on TPU);
+    #                  Hessians are diagonal, i.e. separable costs; no
+    #                  eigendecomposition);
     #   "eigh"       — exact projection onto the PSD cone (batched eigh);
     #   "gershgorin" — Gershgorin lower-bound shift (cheap, conservative —
     #                  can over-damp);
@@ -85,7 +85,7 @@ def trajectory_cost(system: System, xs, us):
 @f32_matmuls
 def linearize(system: System, xs, us):
     """Per-step Jacobians of dynamics and gradients/Hessians of cost,
-    vmapped over the horizon (all small dense matrices -> MXU batching)."""
+    vmapped over the horizon (all small dense matrices, batched)."""
     A = jax.vmap(jax.jacfwd(system.step, argnums=0))(xs[:-1], us)
     B = jax.vmap(jax.jacfwd(system.step, argnums=1))(xs[:-1], us)
     lx = jax.vmap(jax.grad(system.stage_cost, argnums=0))(xs[:-1], us)
@@ -189,7 +189,7 @@ def _gershgorin_shift(H, eps):
     """Shift H by max(0, -Gershgorin lower bound) + eps so it is PD.
 
     lambda_min >= min_i (H_ii - sum_{j!=i} |H_ij|); one reduction per
-    matrix, no factorization — vectorizes over (batch, H) on the VPU."""
+    matrix, no factorization — vectorizes over (batch, H)."""
     diag = jnp.diagonal(H, axis1=-2, axis2=-1)
     offsum = jnp.sum(jnp.abs(H), axis=-1) - jnp.abs(diag)
     lb = jnp.min(diag - offsum, axis=-1)
@@ -284,9 +284,8 @@ def backward_sequential_soa(A, B, lx, lu, lxx, luu, lux, Vx_T, Vxx_T, reg):
     batch at once: inputs are batch-LEADING ``(Bb, H, ...)`` arrays (as
     produced by a vmapped linearize) and ``reg`` is per-scenario ``(Bb,)``.
     Internally every small matrix becomes an ``(n, m, Bb)`` stack so the
-    scenario batch fills the 128-lane minor axis of each VPU op instead of
-    the 4x4 matrix doing so — see ops/soa.py for the layout argument and
-    measurements (~40x on the cartpole backward pass).
+    scenario batch is the minor (contiguous) axis of each vector op instead
+    of the 4x4 matrix being so — see ops/soa.py for the layout argument.
 
     The Cholesky solve of the vmapped path becomes an unrolled Gauss-Jordan
     inverse (closed-form for nu <= 2); Quu is PD by construction here
@@ -378,8 +377,7 @@ def riccati_combine(elem_i, elem_j, I_x):
         return jnp.swapaxes(M, -1, -2)
 
     # M = (I + Ci Jj)^{-1}; N = (I + Jj Ci)^{-1} — unrolled inverses
-    # (jnp.linalg.solve's LU loops explode TPU compile time here; see
-    # ops/linalg_small.py).
+    # instead of jnp.linalg.solve's LU loops (ops/linalg_small.py).
     from ..ops.linalg_small import inv_unrolled
 
     M = inv_unrolled(I_x + Ci @ Jj)
@@ -439,7 +437,7 @@ def backward_associative(
     ``V_k(x) = min_u [cost + V_{k+1}(f(x,u))]`` after eliminating ``u``
     against its own stage quadratic; elements compose associatively
     (temporal-parallelization-of-LQT formulation), so the whole horizon
-    reduces in O(log H) depth on the TPU instead of O(H).
+    reduces in O(log H) depth instead of O(H).
 
     Element semantics (suffix form): composing elements k..T yields
     ``J_k = Vxx_k`` and ``eta_k = -Vx_k`` contributions such that the
@@ -498,9 +496,8 @@ def backward_associative_soa(
     ``(H+1, n, m, Bb)`` stacks — the soa ops index matrix dims from the
     right, so the element construction needs no vmap and the
     ``associative_scan`` combine maps over the time axis for free.  This
-    composes the two round-1 wins that previously excluded each other
-    (VERDICT item 7): the 128-lane batch-minor layout AND the O(log H)
-    horizon parallelism.
+    composes the batch-minor layout with the O(log H) horizon
+    parallelism.
     """
     from ..ops import soa
 
@@ -607,8 +604,8 @@ def forward_linesearch_soa(system: System, xs, us, ks, Ks, alphas):
     """Batched closed-loop line search in batch-minor SoA layout.
 
     Same semantics as ``vmap(forward_linesearch)`` over a scenario batch,
-    but states are carried as ``(nx, n_alpha, Bb)`` stacks so every VPU op
-    runs 128-lane-wide over scenarios (requires
+    but states are carried as ``(nx, n_alpha, Bb)`` stacks so every vector
+    op runs over scenarios in the minor axis (requires
     ``system.batch_polymorphic``; see ops/soa.py for the layout argument).
     Inputs/outputs are batch-leading: xs (Bb, H+1, nx), us (Bb, H, nu),
     ks (Bb, H, nu), Ks (Bb, H, nu, nx).
@@ -725,7 +722,7 @@ def solve_batched(
     at scale — runs in batch-minor SoA layout
     (:func:`backward_sequential_soa`, or :func:`backward_associative_soa`
     for ``backward="associative"``, which adds O(log H) horizon parallelism
-    on top of the 128-lane batch layout).  Semantics match ``vmap(solve)``
+    on top of the batch-minor layout).  Semantics match ``vmap(solve)``
     exactly up to f32 summation order.
     """
     backward_b = (

@@ -1,8 +1,8 @@
 """Parallel-in-time real-time-iteration (RTI) SQP-MPC.
 
-The 1 kHz replan budget (BASELINE.json config 5) cannot be met with O(H)
-sequential structure: this TPU's dispatch floor is ~12 us per sequential
-scan step, so rollout(H=50) + backward(H) + forward(H) >= 1.8 ms.  This
+The 1 kHz replan budget (BASELINE.json config 5) is hard to meet with O(H)
+sequential structure: every sequential scan step costs a device-side loop
+iteration, and rollout(H) + backward(H) + forward(H) is 3H of them.  This
 module is the O(log H)-depth replan:
 
 * **linearize** around the shifted previous nominal — vmapped over the
@@ -18,7 +18,7 @@ module is the O(log H)-depth replan:
 
 No sequential nonlinear rollout anywhere in the tick.  This is the
 standard real-time iteration scheme (one SQP iteration per tick, warm
-started), laid out parallel-in-time for the TPU.
+started), laid out parallel-in-time.
 """
 
 from __future__ import annotations
@@ -132,9 +132,8 @@ def backward_associative_defect(
         def tr(M):
             return jnp.swapaxes(M, -1, -2)
 
-        # Unrolled inverses: jnp.linalg.solve's pivoted-LU loops make the
-        # TPU compile of this nested program pathologically slow
-        # (ops/linalg_small.py).
+        # Unrolled inverses instead of jnp.linalg.solve's pivoted-LU loops
+        # inside this nested program (ops/linalg_small.py).
         from ..ops.linalg_small import inv_unrolled
 
         M = inv_unrolled(I_x + Ci @ Jj)

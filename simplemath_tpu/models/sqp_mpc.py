@@ -15,7 +15,7 @@ Structure:
 * ``scenario_mpc_step`` — robust scenario-MPC with a SHARED first control:
   per-scenario backward passes run sharded over the mesh's scenario axis and
   the first-step KKT block (Quu_0, Qu_0) is reduced across chips with
-  ``psum`` over ICI — the distributed QP/KKT block reduction of
+  ``psum`` across the mesh — the distributed QP/KKT block reduction of
   BASELINE.json configs 4-5.
 """
 
@@ -293,7 +293,7 @@ def make_scenario_mpc_step(
     one jit).  Returns ``step(x0_batch, us_batch) -> (us', du0, stats)``.
 
     Each scenario k runs its own backward pass; the first-step QP/KKT block
-    (Quu_0^k, Qu_0^k) is summed across the mesh (``psum`` over ICI) and the
+    (Quu_0^k, Qu_0^k) is summed across the mesh (``psum``) and the
     consensus first control update  du0 = -(Σ Quu_0^k)^{-1} Σ Qu_0^k  is
     applied to every scenario through a mesh-wide line search.
     """

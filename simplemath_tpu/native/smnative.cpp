@@ -1,8 +1,8 @@
 // smnative — native host-side runtime helpers for simplemath_tpu.
 //
 // The reference implements its whole runtime in C++ (header-only SIMD
-// kernels + shape machinery).  On TPU the *compute* path belongs to
-// XLA/Pallas, but the host-side array plumbing the reference does natively
+// kernels + shape machinery).  On the accelerator the *compute* path
+// belongs to XLA, but the host-side array plumbing the reference does natively
 // stays native here too:
 //
 //  * nested-sequence parsing: shape inference + flattening of arbitrarily

@@ -1,13 +1,12 @@
-"""Kernel layer: op registry, Pallas elementwise/broadcast kernels,
-transcendental kernels, reductions — the TPU-native stand-in for the
-reference's include/math/ tree (SimdTraits + op functors + dispatch engine).
+"""Op layer: op registry, dispatch engine, deferred-eager queue, fusion,
+transcendentals, the iterated-fuse kernel — the stand-in for the
+reference's include/math/ tree (op functors + dispatch engine).
 """
 
 from . import (  # noqa: F401
-    elementwise,
     engine,
+    fuse_loop,
     matmul,
-    reduction,
     registry,
     transcendental,
 )

@@ -1,15 +1,17 @@
-"""Kernel-dispatch observability.
+"""Dispatch observability: which path each library op took.
 
 The reference's dispatch is compile-time (ISA ``#ifdef``s pick the SIMD
 specialization, include/math/helpers.h:14-20) so "which kernel ran" is
-visible in the binary.  Here backend selection happens at trace time
-(ops/engine.py), so this module keeps a lightweight counter of every Pallas
-kernel launch the engine builds.  Tests use it to assert that a public API
-call actually routed to a kernel (rather than silently falling back to the
-XLA path), and users can read it to understand dispatch decisions.
+visible in the binary.  Here it happens at trace time, so this module
+counts, per path, the programs the library dispatches: ``engine:<op>``
+for every public elementwise call, ``elementwise:<op>`` / ``elementwise:
+fused`` for each program a lone op or a flushed chain becomes (launches
+per chain), ``reduce*`` / ``matmul:*`` for reductions and contractions,
+and ``fuse_loop:triton`` / ``fuse_loop:xla`` for the iterated fuse's
+route.  Tests assert routing with it.
 
-Counting happens at trace/launch-build time: one increment per eager op
-call, one per jit trace for ops inside a jitted function.
+Counting happens at trace time: one increment per eager op call, one per
+jit trace for ops inside a jitted function.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ _COUNTS: collections.Counter = collections.Counter()
 
 
 def record(kind: str, name: str = "") -> None:
-    """Record one kernel dispatch, e.g. record("elementwise", "add")."""
+    """Record one dispatch, e.g. record("elementwise", "add")."""
     _COUNTS[f"{kind}:{name}" if name else kind] += 1
 
 

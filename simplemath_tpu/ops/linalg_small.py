@@ -1,10 +1,9 @@
-"""Small-matrix linear algebra, unrolled for the TPU compiler.
+"""Small-matrix linear algebra, unrolled.
 
 ``jnp.linalg.solve``/``inv`` lower to pivoted LU implemented with
 ``while``-loops and per-column dynamic slices; nested under vmap +
-associative_scan + an outer scan, the TPU (Mosaic/XLA) compile time
-explodes (observed: 25+ minutes for a program that compiles in 6 s on
-CPU).  For the solver stack's matrices (nx <= ~16, well-conditioned
+associative_scan + an outer scan that is slow to compile and runs as many
+small loops.  For the solver stack's matrices (nx <= ~16, well-conditioned
 I + C·J forms with C, J PSD), a statically-unrolled Gauss-Jordan without
 pivoting compiles to pure vector ops and is numerically fine.
 

@@ -2,15 +2,15 @@
 
 Reference pattern (README.md:86-133): a new op is a functor with a scalar
 ``apply`` plus per-ISA ``apply_simd`` specializations, wired into an operator
-on ``SMArray``.  TPU-native re-design: an op is a name + a jnp-level function
-(the "scalar" definition, automatically vectorized by XLA) + an optional
-``tile_fn`` applied to VMEM tiles inside the generic Pallas elementwise
-kernel (the "SIMD specialization"; defaults to the jnp function, which the
-Mosaic compiler lowers to VPU ops).  ``register_op`` is the public hook:
+on ``SMArray``.  Here an op is a name + a jnp-level function (the "scalar"
+definition, automatically vectorized by XLA) + an optional ``tile_fn``, the
+form composed into fused chains (ops/lazy.py, ``sm.fuse``) and the
+iterated-fuse kernel (the "SIMD specialization"; defaults to the jnp
+function).  ``register_op`` is the public hook:
 
     import simplemath_tpu as sm
     sm.register_op("my_op", lambda a, b: (a + b) * 2)
-    c = sm.apply_op("my_op", x, y)          # broadcast + kernel dispatch
+    c = sm.apply_op("my_op", x, y)          # broadcast + dispatch
 
 matching the reference's MyOp example (README.md:94-133) without any
 per-dtype/per-ISA boilerplate.
@@ -29,10 +29,8 @@ class Op:
     name: str
     fn: Callable  # jnp-level function (arity operands, broadcast done by caller)
     arity: int = 2
-    # Function applied per VMEM tile inside the Pallas kernel; defaults to fn.
+    # Function composed into fused chains and kernels; defaults to fn.
     tile_fn: Optional[Callable] = None
-    # Whether the generic Pallas elementwise kernel may execute this op.
-    pallas_ok: bool = True
 
     def tile(self) -> Callable:
         return self.tile_fn if self.tile_fn is not None else self.fn
@@ -47,12 +45,11 @@ def register_op(
     *,
     arity: int = 2,
     tile_fn: Callable = None,
-    pallas_ok: bool = True,
     overwrite: bool = False,
 ) -> Op:
     if name in _REGISTRY and not overwrite:
         raise ValueError(f"op {name!r} already registered")
-    op = Op(name=name, fn=fn, arity=arity, tile_fn=tile_fn, pallas_ok=pallas_ok)
+    op = Op(name=name, fn=fn, arity=arity, tile_fn=tile_fn)
     _REGISTRY[name] = op
     return op
 
@@ -97,9 +94,8 @@ register_op("negative", lambda a: -a, arity=1)
 register_op("abs", jnp.abs, arity=1)
 register_op("sqrt", jnp.sqrt, arity=1)
 register_op("square", jnp.square, arity=1)
-# Trig/hyperbolic: XLA's polynomial lowerings work inside Mosaic kernels
-# too (verified on real v5e), so these ride the same engine as the
-# arithmetic ops and compose under sm.fuse.
+# Trig/hyperbolic ride the same engine as the arithmetic ops and compose
+# under sm.fuse.
 register_op("sin", jnp.sin, arity=1)
 register_op("cos", jnp.cos, arity=1)
 register_op("tan", jnp.tan, arity=1)
@@ -107,7 +103,6 @@ register_op("tanh", jnp.tanh, arity=1)
 register_op("sign", jnp.sign, arity=1)
 
 # Ternary elementwise: select and clamp (NumPy where/clip semantics).
-# These ride the same engine/fusion/lazy machinery as the binary ops —
-# the generic Pallas kernel is N-operand already.
+# These ride the same engine/fusion/lazy machinery as the binary ops.
 register_op("where", lambda c, x, y: jnp.where(c, x, y), arity=3)
 register_op("clip", lambda a, lo, hi: jnp.clip(a, lo, hi), arity=3)

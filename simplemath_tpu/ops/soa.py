@@ -1,21 +1,18 @@
 """Structure-of-arrays (batch-minor) small-matrix algebra.
 
 The batched solvers carry thousands of tiny (nx<=16) matrices.  Under a
-plain ``vmap`` the batch is a LEADING axis, so each small matrix lands in
-the minor (sublane, lane) tile of the TPU vector unit — a 4x4 f32 block
-uses 16 of the 8x128=1024 tile slots (<2% of every VPU op and 64x padded
-HBM traffic).  The reference hits the same wall from the other side: its
+plain ``vmap`` the batch is a LEADING axis, so each small matrix is the
+minor (contiguous) block of memory and every vector op works on a few
+elements.  The reference hits the same wall from the other side: its
 strided path drops to scalar code whenever the inner layout doesn't match
 the SIMD width (include/math/calculate.h:33-46, SURVEY §2.4-1).
 
-The TPU-native fix is this module's layout: a batch of matrices is ONE
-array of shape ``(n, m, B)`` whose minor axis is the batch — every scalar
-entry ``A[i, j]`` is a ``(B,)`` vector filling whole 128-lane registers,
-and the small-matrix algebra unrolls into pure full-width VPU ops
-(n, m are small static ints, so the unrolled op count is tiny).
-
-Measured on the cartpole Riccati backward pass (nx=4, nu=1, H=100,
-B=8192): ~40 ms/iteration vmapped -> ~1 ms in this layout.
+This module's layout: a batch of matrices is ONE array of shape
+``(n, m, B)`` whose minor axis is the batch — every scalar entry
+``A[i, j]`` is a contiguous ``(B,)`` vector, and the small-matrix algebra
+unrolls into full-width elementwise ops over the batch (n, m are small
+static ints, so the unrolled op count is tiny).  Whether it beats the
+vmapped layout on the H100 is not measured yet.
 
 Conversion helpers move the batch axis with a single transpose at the
 boundary; everything between stays batch-minor.
@@ -100,8 +97,8 @@ def inv(A):
     pivoting.
 
     Same contract as ops.linalg_small.inv_unrolled (diagonally-dominant /
-    PD inputs; see that module's docstring for why pivoted LU is unusable
-    under TPU compilation), but in batch-minor layout.  n == 1 and n == 2
+    PD inputs; see that module's docstring for why pivoted LU is avoided),
+    but in batch-minor layout.  n == 1 and n == 2
     specialize to closed forms."""
     from .linalg_small import _debug_check_finite
 

@@ -3,7 +3,8 @@
 The reference's only parallelism is shared-memory OpenMP threads
 (include/math/calculate.h:47,152) — there is no communication backend
 (SURVEY §2.3).  This module IS the framework's communication backend:
-XLA collectives over the ICI/DCN mesh, used by the distributed solvers for
+XLA collectives over the device mesh (NCCL on GPUs), used by the
+distributed solvers for
 QP/KKT block reductions and convergence checks.  They work inside
 ``shard_map`` regions over named mesh axes.
 """
@@ -16,7 +17,7 @@ from jax import shard_map  # noqa: F401  (re-export)
 
 
 def psum(x, axis_name: str):
-    """Sum-reduce across a mesh axis (rides ICI when the axis is intra-slice)."""
+    """Sum-reduce across a mesh axis."""
     return jax.lax.psum(x, axis_name)
 
 

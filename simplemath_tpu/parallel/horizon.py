@@ -10,7 +10,7 @@ axis, and the associative scan becomes the classic blocked formulation —
 1. each device suffix-scans its local block of value elements
    (O(H/D) work, O(log H/D) depth),
 2. block totals are ``all_gather``-ed over the axis (one small collective:
-   D elements of (nx² + nx)-sized tuples ride the ICI),
+   D elements of (nx² + nx)-sized tuples cross the interconnect),
 3. every device composes the totals of all *later* blocks (exclusive
    suffix, O(log D) work, identical on all devices),
 4. local results are corrected by one composition with that exclusive
@@ -20,8 +20,9 @@ The element algebra's two-sided identity (``riccati_identity``) pads H+1 to
 a multiple of the axis size and serves as the "no later block" suffix, so
 any horizon length works on any mesh.
 
-This is how a horizon too long for one chip's VMEM/HBM — or a replan
-deadline tighter than one chip's sequential latency — scales over ICI.
+This is how a horizon too long for one device's memory — or a replan
+deadline tighter than one device's sequential latency — scales across
+devices.
 """
 
 from __future__ import annotations

@@ -2,10 +2,9 @@
 
 The reference's analog is compile-time ISA probing: CMake runs a cpuid
 prober and picks -mavx512f/-mavx2/-mavx flags (cmake/avx_utils.cmake:5-146).
-TPU-native, the "detect then specialize" step happens at runtime:
-``jax.devices()`` exposes the chips; the mesh factory lays them out as
-(DCN/host axis) x (ICI axis) so collectives ride ICI within a slice and only
-cross DCN when an axis genuinely spans hosts (scaling-book recipe).
+Here the "detect then specialize" step happens at runtime: ``jax.devices()``
+exposes the devices, and the mesh follows the algorithm (the cards of one
+host reach each other all to all over NVLink, so no layout is preferred).
 """
 
 from __future__ import annotations
@@ -40,8 +39,8 @@ def make_mesh(
 
     Default: 1-D mesh over all devices named after ``config.data_axis``
     (the scenario axis of the batched solvers).  Pass ``axis_sizes`` /
-    ``axis_names`` for 2-D layouts, e.g. ``((n_hosts, chips_per_host),
-    ("dcn", "scenario"))`` so the scenario axis stays on ICI.
+    ``axis_names`` for 2-D layouts, e.g. ``((n_hosts, devices_per_host),
+    ("host", "scenario"))`` so the scenario axis stays within a host.
     """
     devices = np.asarray(devices if devices is not None else jax.devices())
     if axis_sizes is None:

@@ -1,15 +1,13 @@
-"""Multi-host orchestration helpers.
+"""Multi-process orchestration helpers.
 
-A v5p pod slice runs one python process per host, each seeing its local
-chips; ``jax.distributed.initialize`` stitches them into one global device
-list.  The mesh is laid out (dcn, ici) so the scenario axis stays on ICI
-within a host/slice and only the outer data axis crosses DCN
-(BASELINE.json: >=80% 2-host scaling efficiency requires collectives to
-ride ICI).
+A cluster runs one python process per host, each seeing its local devices;
+``jax.distributed.initialize`` stitches them into one global device list.
+``pod_mesh`` lays the devices out as (process, local device), so the
+scenario axis stays within a host and only the outer axis crosses hosts.
 
-Without a pod (this dev environment has one chip), the same code paths are
-exercised on a CPU mesh with ``--xla_force_host_platform_device_count=N``
-(tests) and via ``__graft_entry__.dryrun_multichip``.
+On one host the same code paths are exercised on a CPU mesh with
+``--xla_force_host_platform_device_count=N`` (tests) and via
+``__graft_entry__.dryrun_multichip``.
 """
 
 from __future__ import annotations
@@ -39,15 +37,16 @@ def initialize_from_env() -> None:
 
 
 def pod_mesh(
-    ici_axis: str = "scenario", dcn_axis: str = "dcn"
+    device_axis: str = "scenario", host_axis: str = "host"
 ) -> Mesh:
-    """(n_hosts, chips_per_host) mesh: dcn outer, ICI inner."""
+    """(n_processes, devices_per_process) mesh, hosts outer; 1-D over the
+    devices when there is one process."""
     n_proc = jax.process_count()
     n_dev = jax.device_count()
     per_host = n_dev // max(n_proc, 1)
     if n_proc <= 1:
-        return make_mesh((n_dev,), (ici_axis,))
-    return make_mesh((n_proc, per_host), (dcn_axis, ici_axis))
+        return make_mesh((n_dev,), (device_axis,))
+    return make_mesh((n_proc, per_host), (host_axis, device_axis))
 
 
 def host_local_batch_slice(global_batch: int) -> Tuple[int, int]:

@@ -1,16 +1,16 @@
 """Sharded batched solving: the scenario axis over the device mesh.
 
-TPU-native replacement for the reference's intra-op OpenMP loop
+Replacement for the reference's intra-op OpenMP loop
 (include/math/calculate.h:47-48): instead of threads over 1024-element
 chunks, ``shard_map`` splits the scenario batch across chips, each chip
 vmaps its shard, and cross-chip ``psum``/``pmax`` collectives aggregate
 global solver statistics (cost sums, convergence criteria — the "QP/KKT
 block reductions" of BASELINE.json configs 4-5).
 
-``axis_name`` may be a single mesh axis or a tuple (e.g. ``("dcn",
-"scenario")`` on a 2-D pod mesh): the batch shards over the axis product,
-and the stat reductions ride ICI first and cross DCN once — the
-scaling-book layout for >=80% 2-host efficiency.
+``axis_name`` may be a single mesh axis or a tuple (e.g. ``("host",
+"scenario")`` on a 2-D multi-host mesh): the batch shards over the axis
+product, and the stat reductions run over the inner axis first, so only a
+scalar crosses hosts.
 """
 
 from __future__ import annotations
@@ -63,9 +63,8 @@ def solve_batched_sharded(
 
     def shard_fn(x0s, uss):
         result = _ilqr.solve_batched(system, x0s, uss, ilqr_config)
-        # Cross-chip KKT/convergence reductions.  Reducing over the axis
-        # tuple in inner-to-outer order keeps the heavy reduction on ICI
-        # and crosses DCN with a single scalar.
+        # Cross-device KKT/convergence reductions, over the axis tuple in
+        # inner-to-outer order, so only a scalar crosses hosts.
         total_cost = jnp.sum(result.cost)
         max_grad = jnp.max(result.grad_norm)
         for ax in reversed(axes):

@@ -8,20 +8,15 @@ aliasing; these helpers surface them:
 * ``nan_guard(fn)`` — wraps a function so every output leaf is checked for
   NaN/Inf at runtime (works under jit via ``jax.debug``-style checkify or
   eager asserts);
-* ``interpret_kernels()`` — context manager forcing Pallas interpret mode
-  (the kernel-level "sanitizer" run: pure python semantics, bounds-visible);
 * ``assert_tree_finite`` / ``tree_norm`` — quick state inspection.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import jax
 import jax.numpy as jnp
-
-from ..config import config
 
 
 def assert_tree_finite(tree, name: str = "value") -> None:
@@ -64,15 +59,3 @@ def nan_guard(fn):
         return out
 
     return wrapped
-
-
-@contextlib.contextmanager
-def interpret_kernels():
-    """Force Pallas kernels into interpret mode within the context — the
-    kernel 'sanitizer' pass (python-level semantics, visible OOB)."""
-    old = config.pallas_interpret
-    config.pallas_interpret = True
-    try:
-        yield
-    finally:
-        config.pallas_interpret = old

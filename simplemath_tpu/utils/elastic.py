@@ -1,9 +1,9 @@
 """Failure detection and elastic (checkpoint/resume) execution of long runs.
 
 The reference has nothing here (SURVEY §5: "failure detection / elastic
-recovery / fault injection — Absent"); this is the TPU-native subsystem a
-production deployment needs: long batched-MPC / solver runs on preemptible
-TPU slices must survive device loss and detect silent state corruption.
+recovery / fault injection — Absent"); this is the subsystem a production
+deployment needs: long batched-MPC / solver runs on preemptible machines
+must survive device loss and detect silent state corruption.
 
 Design (host-side driver, device-side compute — nothing here touches the
 XLA-traced path):
@@ -13,11 +13,11 @@ XLA-traced path):
   segment boundaries the state is synced once, validated, and checkpointed
   via :mod:`simplemath_tpu.utils.checkpoint` with atomic latest-marker
   rotation, so a kill at any instant leaves a consistent resumable state.
-- **Failure detection** covers the two TPU failure classes:
-  (1) *device/runtime failure* (preemption, tunnel loss, OOM) surfaces as a
+- **Failure detection** covers the two failure classes:
+  (1) *device/runtime failure* (preemption, device loss, OOM) surfaces as a
   RuntimeError/XlaRuntimeError from the step call — caught, counted, and
   retried from the last good checkpoint up to ``max_restarts`` times;
-  (2) *state corruption* (NaN/inf from a diverging solver or flaky HBM)
+  (2) *state corruption* (NaN/inf from a diverging solver or flaky memory)
   is caught by a finiteness sweep over the state pytree at each boundary —
   a corrupt segment is rolled back and re-run, and if corruption repeats
   deterministically it is reported as :class:`StateCorruption` rather than
@@ -177,7 +177,7 @@ def run_elastic(
         except StateCorruption:
             raise
         except (RuntimeError, jax.errors.JAXTypeError) as e:
-            # Device/runtime failure (preemption, tunnel loss, OOM, or an
+            # Device/runtime failure (preemption, device loss, OOM, or an
             # injected fault).  Resume from the last on-disk checkpoint —
             # NOT from `good_state`, which may live on the failed device.
             # The restart resets the corruption-attempt history: a transient

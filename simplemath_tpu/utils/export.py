@@ -1,7 +1,7 @@
 """AOT export / serving: serialize compiled solver steps to StableHLO.
 
 The reference is a header-only library — "deployment" means recompiling
-the caller.  A production TPU control stack wants the opposite: solve
+the caller.  A production control stack wants the opposite: solve
 steps compiled ONCE, serialized, and served by a process that contains no
 tracing, no Python model code, and no compile-time jitter (the 1 kHz
 replan budget has no room for a retrace).  This module wraps
@@ -15,8 +15,9 @@ replan budget has no room for a retrace).  This module wraps
 * ``export_solver_step(system, config, batch, horizon)`` is the
   convenience wrapper for the flagship batched iLQR solve.
 
-Artifacts embed platform-specific custom calls (Pallas kernels serialize
-as Mosaic payloads), so an artifact exported on TPU serves on TPU.
+Artifacts embed platform-specific custom calls (the Triton kernel
+serializes as a Triton payload), so an artifact exported on a GPU serves on
+a GPU.
 ``jax.export``'s versioned serialization provides the compatibility
 window; anything else raises at deserialization rather than miscomputing.
 """

@@ -1,16 +1,16 @@
 """Matmul-precision pinning for the solver layer.
 
-TPU's DEFAULT matmul precision truncates f32 operands to bf16 before the
-MXU.  For the big dense kernels that is the documented speed contract
-(ops/matmul.py), but inside the solvers the matrices are tiny (nx <= 12)
-and chained through hundreds of Riccati steps — bf16 truncation there
-compounds into real convergence failures (measured on v5e: the AL
-box-constraint solve stalls at 1e-1 violation instead of 1e-6, and the SoA
-vs vmapped backward passes drift apart).  Every solver entry point
-therefore pins float32 precision for the ops built under it; the cost is
-negligible (the MXU is idle at these shapes) and results match the CPU
+A platform's DEFAULT f32 matmul precision may round the operands — on the
+H100, XLA runs default-precision f32 products in TF32 on the tensor cores
+(10 mantissa bits per operand).  For large dense products that is the
+documented speed contract (ops/engine.py), but inside the solvers the
+matrices are tiny (nx <= 12) and chained through hundreds of Riccati steps,
+where operand rounding compounds into convergence failures and drift
+between the SoA and vmapped backward passes.  Every solver entry point
+therefore pins float32 precision for the ops built under it, which keeps
+them off TF32; the cost is negligible at these shapes, and results match the
 float64 reference within f32 tolerance — BASELINE.json's numerical-parity
-contract.
+contract (tests/test_numerical_parity.py, and on the card chip_smoke.py).
 """
 
 from __future__ import annotations

@@ -8,10 +8,8 @@ import simplemath_tpu as sm
 def test_unary_functions(rng):
     x = rng.normal(size=(4, 5)).astype(np.float32)
     a = sm.Array(x)
-    # sin/cos/tanh lower to the platform's native f32 approximations; the
-    # TPU VPU versions are good to ~4e-5 relative (a few bf16-grade ulps),
-    # tighter on CPU.  These assert API surface, not our kernels (exp/log/
-    # pow accuracy is pinned down in test_transcendental.py).
+    # These assert API surface (the accuracy contracts of the
+    # transcendentals are pinned down in test_transcendental.py).
     np.testing.assert_allclose(sm.sin(a).numpy(), np.sin(x), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(sm.cos(a).numpy(), np.cos(x), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(sm.tanh(a).numpy(), np.tanh(x), rtol=1e-4, atol=1e-5)
@@ -117,15 +115,11 @@ def test_statistical_reductions():
 
 
 def test_unary_surface_extensions():
-    import jax
-
     A = np.asarray([[0.3, -1.7], [2.5, -0.5]], np.float32)
     a = sm.array(A)
     # These surface fns are plain XLA lowerings (unlike the contracted
-    # transcendentals): XLA:TPU's log1p/log10 are only ~2.6e-4 accurate
-    # (measured — the same sloppy-log family ops/transcendental.py routes
-    # around for sm.log), so the TPU bound is the platform's, not ours.
-    rtol = 1e-5 if jax.default_backend() != "tpu" else 5e-4
+    # transcendentals), held to the CPU's accuracy here.
+    rtol = 1e-5
     for name in ("floor", "ceil", "round", "log1p", "expm1", "sinh", "cosh",
                  "arctan", "isnan", "isinf", "isfinite"):
         got = np.asarray(getattr(sm, name)(sm.abs(a) if name.startswith("log") else a))

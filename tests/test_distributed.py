@@ -31,8 +31,8 @@ def test_make_mesh_default():
 
 def test_make_mesh_2d():
     n = len(jax.devices())
-    mesh = parallel.make_mesh((2, n // 2), ("dcn", "scenario"))
-    assert mesh.shape["dcn"] == 2
+    mesh = parallel.make_mesh((2, n // 2), ("host", "scenario"))
+    assert mesh.shape["host"] == 2
     assert mesh.shape["scenario"] == n // 2
 
 

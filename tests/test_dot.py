@@ -2,7 +2,7 @@
 
 The reference supports int32/float/double/complex<double> flat dot products;
 here numpy.dot semantics over any rank, honoring views (fixing SURVEY
-§2.4-3), lowered to the MXU via dot_general on TPU."""
+§2.4-3), lowered through dot_general."""
 
 import numpy as np
 import pytest
@@ -19,10 +19,6 @@ def test_dot_1d(dtype):
     a = np.arange(1, 9).astype(dtype)
     b = (np.arange(1, 9)[::-1]).astype(dtype)
     if dtype == np.complex128:
-        import jax
-
-        if jax.default_backend() != "cpu":
-            pytest.skip("complex128 is an XLA-CPU-path feature (no c128 on TPU)")
         a = a + 1j * np.arange(8)
         b = b - 1j * np.arange(8)
     out = sm.Array(a).dot(sm.Array(b))

@@ -1,10 +1,9 @@
-"""Pallas kernels + sm.fuse composed under shard_map over a device mesh.
+"""Public sm ops + sm.fuse composed under shard_map over a device mesh.
 
-The deployment shape for the distributed layer (SURVEY §2.3): per-chip
-compute inside shard_map shards runs the SAME public sm ops / fused kernels
-as single-chip code — these tests pin that the kernel paths (forced Pallas,
-interpret mode on the CPU mesh) trace and execute correctly inside
-shard_map-sharded programs with collectives mixed in.
+The deployment shape for the distributed layer (SURVEY §2.3): per-device
+compute inside shard_map shards runs the SAME public sm ops / fused chains
+as single-device code — these tests pin that each path traces and executes
+correctly inside shard_map-sharded programs with collectives mixed in.
 """
 
 import jax
@@ -16,7 +15,6 @@ from jax.sharding import PartitionSpec as P
 
 import simplemath_tpu as sm
 from simplemath_tpu import parallel
-from simplemath_tpu.config import config
 from simplemath_tpu.ops import dispatch
 
 pytestmark = pytest.mark.skipif(
@@ -25,12 +23,9 @@ pytestmark = pytest.mark.skipif(
 
 
 @pytest.fixture(autouse=True)
-def force_pallas():
-    old = config.kernel_backend
-    config.kernel_backend = "pallas"
+def reset_dispatch():
     dispatch.reset()
     yield
-    config.kernel_backend = old
 
 
 def test_elementwise_kernel_inside_shard_map(rng):
@@ -41,7 +36,7 @@ def test_elementwise_kernel_inside_shard_map(rng):
 
     def shard_fn(a_s, b_s):
         c = sm.add(sm.Array(a_s), sm.Array(b_s)).jax()
-        # mix a collective with the kernel output
+        # mix a collective with the op's output
         total = jax.lax.psum(jnp.sum(c), "scenario")
         return c, total
 
@@ -100,9 +95,9 @@ def test_reduction_kernel_inside_shard_map(rng):
 
 
 def test_matmul_mxu_kernel_inside_shard_map(rng):
-    # The MXU matmul kernel — the one the sharded solvers hit at scale
-    # (round-3 VERDICT missing #3) — composing with shard_map: row-sharded
-    # A, replicated B, per-shard Pallas matmul, psum'd checksum.
+    # The matmul path the sharded solvers hit at scale, composing with
+    # shard_map: row-sharded A, replicated B, per-shard matmul, psum'd
+    # checksum.
     mesh = parallel.make_mesh()
     n_dev = mesh.devices.size
     a = (rng.standard_normal((n_dev * 256, 256)) / 16).astype(np.float32)
@@ -149,8 +144,8 @@ def test_bmm_mxu_kernel_inside_shard_map(rng):
 
 
 def test_dot1d_kernel_inside_shard_map(rng):
-    # Sharded 1-D dot: per-shard fused multiply+reduce kernel, psum across
-    # the mesh == the distributed form of product.h's dot loops.
+    # Sharded 1-D dot: per-shard multiply+reduce, psum across the mesh ==
+    # the distributed form of product.h's dot loops.
     mesh = parallel.make_mesh()
     n_dev = mesh.devices.size
     a = rng.standard_normal((n_dev * 2048,)).astype(np.float32)
@@ -172,9 +167,9 @@ def test_dot1d_kernel_inside_shard_map(rng):
 
 
 def test_matmul_epilogue_inside_shard_map(rng):
-    # The round-5 fused epilogue (relu(x @ W + b) as one MXU kernel)
-    # composes with SPMD: per-shard activations against a replicated
-    # weight, a collective over the outputs.
+    # The fused epilogue (relu(x @ W + b)) composes with SPMD: per-shard
+    # activations against a replicated weight, a collective over the
+    # outputs.
     mesh = parallel.make_mesh()
     n_dev = mesh.devices.size
     X = rng.standard_normal((n_dev * 256, 300)).astype(np.float32)
@@ -200,7 +195,7 @@ def test_matmul_epilogue_inside_shard_map(rng):
 
 
 def test_axis_reduction_inside_shard_map(rng):
-    # Per-shard row reductions through the axis kernel + cross-shard psum.
+    # Per-shard row reductions + cross-shard psum.
     mesh = parallel.make_mesh()
     n_dev = mesh.devices.size
     A = rng.standard_normal((n_dev * 64, 256)).astype(np.float32)
@@ -220,14 +215,14 @@ def test_axis_reduction_inside_shard_map(rng):
 
 
 def test_view_kernel_inside_shard_map(rng):
-    # View plans (transposed operand read in-kernel) under shard_map.
+    # A transposed view operand under shard_map.
     mesh = parallel.make_mesh()
     n_dev = mesh.devices.size
     A = rng.standard_normal((256, n_dev * 32)).astype(np.float32)
     B = rng.standard_normal((n_dev * 32, 256)).astype(np.float32)
 
     def shard_fn(a_s, b_s):
-        # a_s arrives (256, 32) per shard; transpose-view + add in-kernel
+        # a_s arrives (256, 32) per shard; transpose-view + add
         return sm.add(sm.Array(a_s).T, sm.Array(b_s)).jax()
 
     fn = shard_map(

@@ -40,10 +40,10 @@ def test_cartpole_f32_matches_f64_cost():
 
 def test_solver_entry_points_pin_f32_matmul_precision():
     """Every solver entry point must trace its ops under float32 matmul
-    precision (utils/precision.py): TPU's default bf16 truncation breaks
-    solver convergence on real hardware (measured: AL stalls at 1e-1
-    violation, SoA drifts from the vmapped oracle — TPU_PARITY.md).  This
-    test fails if a refactor drops the pin from any of them."""
+    precision (utils/precision.py): a platform default that rounds f32
+    matmul operands (TF32 on the H100) compounds through hundreds of
+    Riccati steps.  This test fails if a refactor drops the pin from any
+    of them."""
     from simplemath_tpu.models import ilqr, rti, sqp_mpc
     from simplemath_tpu.ops import soa
     from simplemath_tpu.parallel import horizon

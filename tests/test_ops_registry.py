@@ -9,7 +9,7 @@ import simplemath_tpu as sm
 def test_register_and_apply_custom_op():
     # The reference's MyOp: (a + b) * 2 with an AVX2 specialization
     # (README.md:94-117).  Here one jnp lambda covers every dtype and the
-    # Pallas tile path.
+    # fused tile path.
     if "my_op" not in sm.registered_ops():
         sm.register_op("my_op", lambda a, b: (a + b) * 2)
     a = sm.Array([1.0, 2.0, 3.0])
@@ -55,14 +55,12 @@ def test_operator_attachment():
 
 def test_custom_tile_fn_dispatched_to_pallas():
     # The reference's extension story is scalar apply + a SIMD specialization
-    # (AddOp::apply_simd, README.md:94-117).  Here the specialization is a
-    # Pallas tile_fn; this asserts the kernel engine actually traces it.
-    from simplemath_tpu.config import config
-
+    # (AddOp::apply_simd, README.md:94-117).  Here the specialization is the
+    # tile_fn that fused chains compose; this asserts a chain traces it.
     traced = []
 
     def tile(a, b):
-        traced.append(True)  # fires at kernel-trace time
+        traced.append(True)  # fires when the chain is composed
         return (a + b) * 2
 
     sm.register_op(
@@ -70,14 +68,7 @@ def test_custom_tile_fn_dispatched_to_pallas():
     )
     a = sm.ones(16, 256)
     b = sm.ones(16, 256)
-    old = config.kernel_backend
-    config.kernel_backend = "pallas"
-    try:
-        # Materialize inside the forced-pallas context: the deferred-eager
-        # queue makes the backend decision at flush time.
-        out = sm.apply_op("tiled_op", a, b)
-        out.jax()
-    finally:
-        config.kernel_backend = old
-    assert traced, "custom tile_fn was never traced by the Pallas engine"
+    out = sm.apply_op("tiled_op", a, b) * 1.0  # a two-op chain
+    out.jax()
+    assert traced, "custom tile_fn was never traced by the fused chain"
     np.testing.assert_allclose(out.numpy(), np.full((16, 256), 4.0))

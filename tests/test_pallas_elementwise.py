@@ -1,21 +1,11 @@
-"""Pallas elementwise kernel (forced backend, interpret mode on CPU) vs the
-NumPy oracle — the kernel-engine tests the reference runs implicitly through
-its >100k-element broadcast suites (SURVEY §4)."""
+"""Broadcast elementwise ops through the public API vs the NumPy oracle —
+the engine tests the reference runs implicitly through its >100k-element
+broadcast suites (SURVEY §4)."""
 
 import numpy as np
-import pytest
 
 import simplemath_tpu as sm
-from simplemath_tpu.config import config
-from simplemath_tpu.ops import elementwise
-
-
-@pytest.fixture(autouse=True)
-def force_pallas():
-    old = config.kernel_backend
-    config.kernel_backend = "pallas"
-    yield
-    config.kernel_backend = old
+from simplemath_tpu import platform
 
 
 def test_contiguous_add(rng):
@@ -33,8 +23,8 @@ def test_1d_add(rng):
 
 
 def test_broadcast_no_materialize(rng):
-    # Stride-0 analog: (B, N, C) + (1, 1, C) — the small operand stays a
-    # single block pinned to index 0.
+    # Stride-0 analog: (B, N, C) * (1, 1, C), read with stride 0 by the
+    # fusion.
     a = rng.normal(size=(4, 96, 130)).astype(np.float32)
     b = rng.normal(size=(1, 1, 130)).astype(np.float32)
     out = sm.Array(a) * sm.Array(b)
@@ -72,6 +62,9 @@ def test_int32(rng):
 
 
 def test_supported_gates():
-    assert not elementwise.supported((), (np.float32,), np.float32)
-    assert not elementwise.supported((4,), (np.float64,), np.float64)
-    assert elementwise.supported((4, 4), (np.float32,), np.float32)
+    # Which iterated fuses the GPU kernel takes: dtypes, shapes, L > 1.
+    gpu = dict(platform="gpu")
+    assert platform.fuse_loop_route((4, 4), [(4, 4)], np.float32, 8, **gpu) == "triton"
+    assert platform.fuse_loop_route((4,), [(4,)], np.float64, 8, **gpu) == "xla"
+    assert platform.fuse_loop_route((4, 4), [(4, 4)], np.float32, 1, **gpu) == "xla"
+    assert platform.fuse_loop_route((0, 4), [(0, 4)], np.float32, 8, **gpu) == "xla"

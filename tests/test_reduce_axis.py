@@ -1,26 +1,18 @@
-"""Axis reductions through the Pallas row/column kernel
-(ops/reduction.py::pallas_reduce_axis / pallas_map_reduce_axis) and as
-sm.fuse / deferred-eager roots.
+"""Axis reductions through the Array methods and as sm.fuse /
+deferred-eager roots.
 
 The reference's reduction engine is its flagship op
 (include/math/product.h:8-224, full-array only); NumPy semantics add the
-axis argument, implemented here with the same tiled-accumulator design.
+axis argument.
 """
+
+import zlib
 
 import numpy as np
 import pytest
 
 import simplemath_tpu as sm
-from simplemath_tpu.config import config
 from simplemath_tpu.ops import dispatch
-
-
-@pytest.fixture(autouse=True)
-def force_pallas():
-    old = config.kernel_backend
-    config.kernel_backend = "pallas"
-    yield
-    config.kernel_backend = old
 
 
 NP_FNS = {"sum": np.sum, "max": np.max, "min": np.min, "mean": np.mean}
@@ -33,10 +25,12 @@ class TestArrayAxisReduce:
     @pytest.mark.parametrize("axis", [0, 1, -1, -2])
     @pytest.mark.parametrize("kind", ["sum", "max", "min", "mean"])
     def test_oracle(self, shape, axis, kind):
-        rng = np.random.default_rng(hash((shape, axis, kind)) % 2**32)
+        rng = np.random.default_rng(zlib.crc32(repr((shape, axis, kind)).encode()))
         A = rng.standard_normal(shape).astype(np.float32)
         got = np.asarray(getattr(sm.array(A), kind)(axis=axis))
-        want = NP_FNS[kind](A, axis=axis)
+        # float64 oracle: NumPy's own f32 strided axis sum is the less
+        # accurate of the two.
+        want = NP_FNS[kind](A.astype(np.float64), axis=axis)
         np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
     def test_kernel_dispatched(self):
@@ -62,7 +56,7 @@ class TestArrayAxisReduce:
         A = np.random.default_rng(3).standard_normal((64, 256)).astype(np.float32)
         a = sm.array(A, dtype="bfloat16")
         got = np.asarray(a.sum(axis=0)).astype(np.float32)
-        # f32 in-kernel accumulation of bf16 inputs, result cast to bf16.
+        # bf16 inputs, result in bf16.
         want = np.asarray(
             A.astype(np.float32).sum(axis=0)
         )
@@ -173,8 +167,7 @@ class TestLazyChainAxisReduce:
 
 
 class TestMapReduce2D:
-    """Full reductions of 2-D chains take the no-ravel 2-D block path
-    (round-4 advisor: the 1-D path's reshape is an HBM relayout copy)."""
+    """Full reductions of 2-D chains, with full, row and scalar operands."""
 
     def test_2d_operands_full_reduce(self):
         rng = np.random.default_rng(0)

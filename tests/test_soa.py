@@ -1,10 +1,10 @@
 """Batch-minor (SoA) small-matrix algebra and the SoA iLQR stages.
 
-The SoA layout (ops/soa.py) is the TPU answer to the reference's
+The SoA layout (ops/soa.py) is the answer to the reference's
 layout-sensitive SIMD dispatch (include/math/calculate.h:33-46): instead of
 dropping to scalar code when the inner layout doesn't match the vector
-width, the batched solvers transpose ONCE so the scenario batch fills the
-128-lane axis.  These tests pin exact parity between the SoA paths and the
+width, the batched solvers transpose ONCE so the scenario batch is the
+minor (contiguous) axis.  These tests pin exact parity between the SoA paths and the
 straightforward vmapped implementations they replace.
 """
 

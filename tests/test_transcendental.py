@@ -166,18 +166,15 @@ def test_pow_infinity_special():
 
 
 # ---------------------------------------------------------------- impl modes
-# Accuracy contract per impl mode (measured on real v5e):
+# Accuracy contract per impl mode:
 #  - "crafted": <=4 ulp everywhere (the fdlibm-style implementations);
-#  - "auto" (DEFAULT): exp/pow native (XLA/Mosaic refined, ~5e-6 rel err on
-#    TPU), log crafted (XLA:TPU's log is only ~6e-5 accurate — it is wrong
-#    at log(3), echoing the reference's own documented bug);
-#  - "native": platform accuracy everywhere (loose log on TPU).
+#  - "auto" (DEFAULT): per op, the native op where it meets the <=4-ulp
+#    contract on the H100 (ops/transcendental.py), crafted otherwise;
+#  - "native": platform accuracy everywhere — the opt-in mode keeps the
+#    looser bounds that cover platforms with a sloppy native log.
 _IMPL_TOLS = {
     "crafted": dict(exp=1e-6, log=1e-6, log_atol=1e-6, pow=4e-6),
     "auto": dict(exp=1e-5, log=1e-6, log_atol=1e-6, pow=1e-5),
-    # platform-native log on TPU carries ~6e-5 absolute error (incl. near
-    # x=1 where the true value is ~0) — that IS the documented contract of
-    # the opt-in "native" mode.
     "native": dict(exp=1e-5, log=2e-4, log_atol=1e-4, pow=1e-5),
 }
 
@@ -216,10 +213,8 @@ def test_public_path_accuracy_all_impls(impl):
 
 
 def test_log_at_3_default_and_crafted():
-    """The reference's log is wrong at exactly 3.0 (README.md:10) — and so
-    is XLA:TPU's native log (6.2e-5 off, measured).  The DEFAULT ("auto")
-    path must get it right, which is why auto routes log to the crafted
-    implementation."""
+    """The reference's log is wrong at exactly 3.0 (README.md:10).  The
+    DEFAULT ("auto") path and the crafted one must get it right."""
     import simplemath_tpu as sm
     from simplemath_tpu.config import config
 
@@ -234,15 +229,10 @@ def test_log_at_3_default_and_crafted():
 
 
 # ------------------------------------------------------------ trig contract
-# Measured on the real v5e (tools/measure_trig.py, round 4): native
-# sin/cos/tan are 2-3 ulp across the FULL f32 domain including large
-# arguments (1.9e-7 / 1.8e-7 / 3.3e-7 rel at |x| up to 3e7 — XLA:TPU's trig
-# range reduction is sound, unlike its log/exp2/log2/tanh), so "auto" keeps
-# them native.  Native tanh is only ~8.1e-5 rel, the same class of sloppy
-# lowering as log (TPU_PARITY.md item 2), so "auto" routes tanh to the
-# crafted implementation (tanh_f32, measured <=2e-7 rel).  These bounds are
-# asserted through the PUBLIC sm.* path; the CPU run pins the crafted code
-# and the XLA:CPU lowerings, the SM_TEST_BACKEND=tpu suite run pins Mosaic.
+# sin/cos/tan run natively under "auto"; tanh runs crafted (its native
+# lowering misses the 4-ulp contract on the H100 and on the CPU).  These
+# bounds are asserted through the PUBLIC sm.* path on the CPU;
+# chip_smoke.py measures the same domains on the card.
 _TRIG_TOLS = {"sin": 5e-7, "cos": 5e-7, "tan": 1e-6, "tanh": 5e-7}
 
 
@@ -293,7 +283,7 @@ def test_tanh_crafted_edges():
 
 def test_trig_fused_uses_contract_impl(rng):
     # sm.fuse chains route trig through the same transcendental tiles (the
-    # crafted tanh, not the sloppy native lowering).
+    # crafted tanh, not the native lowering).
     import simplemath_tpu as sm
 
     x = rng.uniform(-3.0, 3.0, (8, 128)).astype(np.float32)
